@@ -12,7 +12,7 @@ Prints one JSON line with the weak-scaling efficiency.
 
 NB: virtual CPU devices share the same physical cores, so CPU-host
 "efficiency" only validates the mechanics (sharding compiles and runs);
-the number is meaningful on real multi-chip/multi-host topologies.
+the number is meaningful on real multi-card or multi-host machines.
 """
 
 import dataclasses
@@ -20,9 +20,9 @@ import json
 import sys
 import time
 
-import numpy as np
-
 import jax
+
+from pyspeedy_tpu.utils.compile_cache import enable_compile_cache
 
 MEMBERS_PER_DEVICE = 8
 N_STEPS = 36
@@ -60,6 +60,7 @@ def main():
     from pyspeedy_tpu.params import T30L8
     from pyspeedy_tpu.testing import make_demo_model
 
+    enable_compile_cache()
     backend = jax.default_backend()
     precision = "f64" if backend == "cpu" else "f32"
     params = dataclasses.replace(T30L8, precision=precision,

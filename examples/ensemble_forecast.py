@@ -1,7 +1,7 @@
 """Ensemble forecast with perturbed initial conditions
 (reference: examples/Ensemble_forecast.ipynb), adapted to pySPEEDY-TPU.
 
-Shows both the reference-style per-member API and the TPU-native batched
+Shows both the reference-style per-member API and the batched
 fast path.
 """
 

@@ -1,10 +1,9 @@
-"""Large batched ensembles on one TPU chip — the internal fast path.
+"""Large batched ensembles on one accelerator — the internal fast path.
 
 The reference caps out at OpenMP threads over a few dozen members
 (speedy_driver.f90:58-79). Here 1024 members advance as vmapped scans on
-the member axis, chunked at the measured throughput optimum
-(parallel/ensemble.MEMBER_CHUNK): ~35,000 member-steps/s at 1024 members
-(BENCH_NOTES.md round 4). This script uses the internal
+the member axis, chunked along it (parallel/ensemble.MEMBER_CHUNK).
+This script uses the internal
 runner API directly — for the reference-style object API at small member
 counts, see ensemble_forecast.py (SpeedyEns batches the same way under the
 hood).

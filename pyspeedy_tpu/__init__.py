@@ -1,4 +1,4 @@
-"""pySPEEDY-TPU: a TPU-native (JAX/XLA) reimplementation of the SPEEDY
+"""pySPEEDY-TPU: a JAX/XLA reimplementation of the SPEEDY
 intermediate-complexity atmospheric general circulation model, with the same
 capabilities and Python API surface as aperezhortal/pySPEEDY."""
 

@@ -9,6 +9,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import constants as pc
+from ..ops import spectral as S
 from ..ops.geometry import Geometry
 from ..params import ModelParams
 
@@ -82,7 +83,7 @@ def get_geopotential_grid(gp: GeopotTables, sp, tg: jnp.ndarray,
     it commutes with the (linear) inverse transform: integrating the ALREADY
     TRANSFORMED temperature tg against the same coefficients reproduces
     spec2grid(get_geopotential(...)) to rounding — saving kx field-levels of
-    inverse transform per physics call on the TPU batched path. The
+    inverse transform per physics call. The
     zonal-mean (m=0) lapse-rate correction is synthesized directly from the
     m=0 spectral column of t (one (nx -> il) matvec; the m=0 inverse DFT is
     the identity on the real plane, fourier.f90:72-76).
@@ -107,6 +108,5 @@ def get_geopotential_grid(gp: GeopotTables, sp, tg: jnp.ndarray,
     tpad = jnp.concatenate([zero, t0, zero], axis=-2)
     dtk = tpad[..., 2:, :] - tpad[..., :-2, :]
     leg0 = sp.cpol_inv_full[:, 0, :]                  # (il, nx)
-    corr = jnp.einsum("...kn,jn->...kj",
-                      gp.corf[:, None] * dtk, leg0)
+    corr = S.einsum("...kn,jn->...kj", gp.corf[:, None] * dtk, leg0)
     return phig + corr[..., None].astype(phig.dtype)

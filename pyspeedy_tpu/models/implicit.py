@@ -2,11 +2,13 @@
 tables.
 
 Behavioral contract from ``speedy.f90/implicit.f90`` and
-``horizontal_diffusion.f90``.  TPU-first design: the per-total-wavenumber
-kx-by-kx LU solves of the reference (implicit.f90:194-207, matrix_inversion.f90)
-are precomputed at set_time_step with a batched ``np.linalg.inv`` and gathered
-into a dense (mx, nx, kx, kx) operator so the per-step correction is one
-batched einsum — an MXU contraction — instead of 62 small solves.
+``horizontal_diffusion.f90``. The per-total-wavenumber kx-by-kx LU solves
+of the reference (implicit.f90:194-207, matrix_inversion.f90) are
+precomputed at set_time_step with a batched ``np.linalg.inv`` and gathered
+into a dense (mx, nx, kx, kx) operator, so the per-step correction is one
+batched level contraction instead of 62 small solves. It runs as unrolled
+multiply-adds (`_apply_level_matrix`), so no matrix product, and hence no
+matrix-product precision, is involved.
 """
 
 from __future__ import annotations
@@ -165,10 +167,9 @@ def build_implicit(params: ModelParams, geom: Geometry, hd: HorDiffusion,
 
 def _apply_level_matrix(A, y):
     """(k, l) matrix along the level axis of complex (..., l, m, n), as kx^2
-    unrolled scalar multiply-adds. Complex einsums lower to convolution
-    kernels on the TPU backend (measured ~2.6 ms/step at 256 members for the
-    four implicit contractions); the unrolled form fuses into plain
-    elementwise work. A may be (k, l) or position-dependent (k, l, m, n)."""
+    unrolled scalar multiply-adds that fuse into plain elementwise work
+    (kx is 8, far below a useful matrix-product size). A may be (k, l) or
+    position-dependent (k, l, m, n)."""
     kxo, kxi = A.shape[0], A.shape[1]
     return jnp.stack(
         [sum(A[k, l] * y[..., l, :, :] for l in range(kxi))

@@ -1,4 +1,4 @@
-"""The spectral side of a leapfrog step as ONE kernel-executable function.
+"""The spectral side of a leapfrog step as ONE function.
 
 Everything between the direct transforms and the new prognostic state —
 spectral flux combination (tendencies.f90:244-268), linear reference-profile
@@ -6,15 +6,6 @@ tendencies (:283-352), the semi-implicit correction (implicit.f90:234-289),
 horizontal diffusion + stratospheric drag (time_stepping.f90:78-122) and the
 Robert-Williams leapfrog (:124-188) — is pointwise/shift/level-contraction
 algebra on tiny (2, kx, mx, nx) real-pair arrays.
-
-A Pallas execution of this chain is a MEASURED dead end, twice over
-(BENCH_NOTES rounds 3-4): per-member whole-state programs run 1.8x slower
-than the XLA fusions (per-instance table re-reads), and member tiling
-cannot amortize the tables because the chain needs 13.4 MB of scoped VMEM
-per member (a 2-member tile already exceeds the 16 MB core limit). The XLA
-stage costs 1.9 ms/step at 256 members — 18% of the step. The
-`mosaic_safe` parameter (kernel-compatible cumsum/einsum formulations)
-remains for the experiment harness (tools/exp_glue.py).
 """
 
 from __future__ import annotations
@@ -30,8 +21,7 @@ from .timestep import hordif, leapfrog_pair, sdrag_mask
 __all__ = ["apply_spectral_update"]
 
 
-def spectral_update(consts, j1: int, dt: float, eps: float,
-                    mosaic_safe: bool, specs, psdt,
+def spectral_update(consts, j1: int, dt: float, eps: float, specs, psdt,
                     vor0, vor1, div0, div1, t0, t1, ps0, ps1,
                     trf0, trf1, phi, tcorh, qcorh):
     """specs: direct-transform outputs (list); state pairs at both time
@@ -47,7 +37,7 @@ def spectral_update(consts, j1: int, dt: float, eps: float,
 
     # --- linear spectral tendencies + implicit (tendencies.f90:24-37) ---
     divdt, tdt, psdt = spectral_linear_tendencies(
-        consts, div0, ps0, phi, divdt, tdt, psdt, mosaic_safe=mosaic_safe)
+        consts, div0, ps0, phi, divdt, tdt, psdt)
     divdt, tdt, psdt = implicit_terms(im, divdt, tdt, psdt)
 
     # --- horizontal diffusion (time_stepping.f90:78-122) ---
@@ -91,8 +81,8 @@ def spectral_update(consts, j1: int, dt: float, eps: float,
 
 
 def apply_spectral_update(consts, state, specs, psdt, j1: int, dt: float):
-    """Run spectral_update over the state dict as plain XLA (the
-    reference-ordered formulation; golden fixtures pin this path bitwise)."""
+    """Run spectral_update over the state dict (the reference-ordered
+    formulation; golden fixtures pin this path)."""
     params = consts.params
     eps = 0.0 if j1 == 1 else params.rob
     ntr, kx = params.ntr, params.kx
@@ -107,8 +97,7 @@ def apply_spectral_update(consts, state, specs, psdt, j1: int, dt: float):
               flat(tr0), flat(tr1),
               state["phi"], state["tcorh"], state["qcorh"])
 
-    outs = spectral_update(consts, j1, dt, eps, False, list(specs),
-                           *arrays)
+    outs = spectral_update(consts, j1, dt, eps, list(specs), *arrays)
 
     (ps0, ps1, vor0, vor1, div0, div1, t0, t1, trf0, trf1) = outs
     unflat = lambda a: a.reshape((2, ntr, kx) + a.shape[-2:])

@@ -1,8 +1,8 @@
 """Dynamical-core tendencies (reference: speedy.f90/tendencies.f90).
 
 All grid-point algebra is batched over the level axis; the per-level Fortran
-transform loops collapse into single batched transforms (einsum + FFT), which
-is where the MXU throughput comes from.
+transform loops collapse into single batched transforms (matrix products or
+FFT).
 
 Array layouts: spectral fields are real PAIRS with a leading c axis (c=0 real
 part, c=1 imaginary part; see ops/spectral.py): (2, kx, mx, nx) / (2, mx, nx).
@@ -26,8 +26,8 @@ __all__ = ["get_tendencies"]
 
 def _vertical_means(dhs, fields):
     """Sigma-mass-weighted vertical means of (kx, il, ix) fields.
-    Broadcast-multiply + level sum (not einsum): fuses, and Mosaic has no
-    lowering for 1-D-operand dots inside Pallas kernels."""
+    Broadcast-multiply + level sum (not einsum): fuses with the
+    surrounding elementwise work."""
     w = np.asarray(dhs)[:, None, None]
     return [jnp.sum(w * f, axis=0) for f in fields]
 
@@ -62,9 +62,9 @@ def _half_level_flux(sigdt, df):
 
 
 def _prefix_cumsum(x, axis: int = 0):
-    """Prefix sums along `axis` via log-depth shift-adds: fuses into the
-    surrounding elementwise work (jnp.cumsum is a while loop on the TPU
-    backend) and lowers inside Pallas kernels (contiguous slices only)."""
+    """Prefix sums along `axis` via log-depth shift-adds, which fuse into
+    the surrounding elementwise work. The golden fixtures pin this summation
+    order for the grid-point sigma-dot recursion."""
     import jax
 
     n = x.shape[axis]
@@ -87,16 +87,14 @@ def grid_dynamics_core(consts, vorg, divg, tg, trg_flat, ug0, vg0, pxy,
     Returns (utend, vtend, ttend, trtend, psdt_g, flux_ut, flux_vt,
     flux_qu, flux_qv, ke): the dynamics-only tendencies (physics adds come
     after), the grid-space log-ps tendency, and the direct-transform input
-    products. Runs as plain XLA or inside the latitude-tiled Pallas kernel
-    (ops/pallas_tiling.py).
+    products.
     """
     geom = consts.geom
     im: ImplicitTables = consts.implicit
     dhs = np.asarray(geom.dhs)
     dhsr = np.asarray(geom.dhsr)[:, None, None]
     fsgr = np.asarray(geom.fsgr)[:, None, None]
-    # Host-side column constants (3-D numpy): inside Pallas kernels, traced
-    # 1-D constants would need shape casts Mosaic cannot lower.
+    # Host-side column constants (3-D numpy), folded by XLA.
     tref = np.asarray(im.tref)
     tref3_c = np.asarray(im.tref3)[:, None, None]
     kx = dhs.shape[0]
@@ -192,7 +190,7 @@ def get_grid_point_tendencies(consts, state, j2: int, physics_fn=None, ctx=None)
 
 def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
     """The transform-and-grid-kernel part of get_grid_point_tendencies:
-    inverse transforms -> grid dynamics core (Pallas-tileable) -> physics ->
+    inverse transforms -> grid dynamics core -> physics ->
     direct transforms. Returns (specs, psdt, state) where specs is the list
     of direct-transform outputs (wind/flux pairs then ke, ttend, tracer
     tendencies) still awaiting the spectral-side combination
@@ -238,16 +236,9 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
     coriol2d = jnp.broadcast_to(
         jnp.asarray(geom.coriol[:, None], dtype=vorg.dtype),
         vorg.shape[-2:])
-    core_args = (vorg, divg, tg, trg_flat, ug, vg, pxy, rcos2d, coriol2d)
-    if consts.pallas_physics:
-        from ..ops.pallas_tiling import tiled_columnwise
-        core = tiled_columnwise(
-            lambda *a: grid_dynamics_core(consts, *a), core_args,
-            vorg.shape[-2])
-    else:
-        core = grid_dynamics_core(consts, *core_args)
     (utend, vtend, ttend, trtend_flat, psdt_g, flux_ut, flux_vt,
-     flux_qu, flux_qv, ke) = core
+     flux_qu, flux_qv, ke) = grid_dynamics_core(
+        consts, vorg, divg, tg, trg_flat, ug, vg, pxy, rcos2d, coriol2d)
     trtend = trtend_flat.reshape((ntr, kx) + vorg.shape[-2:])
 
     # --- log-ps tendency (tendencies.f90:144-149) ---
@@ -279,9 +270,8 @@ def grid_tendency_specs(consts, state, j2: int, physics_fn=None, ctx=None):
 def combine_specs(consts, specs, ntr: int, kx: int):
     """Spectral combination of the direct-transform outputs
     (tendencies.f90:244-268): flux pairs -> vor/div/T/tracer tendencies,
-    KE Laplacian. Pure pointwise/shift spectral algebra (Mosaic-compatible:
-    runs inside the spectral-glue Pallas kernel). Tracer tendencies come back
-    FLAT: (2, ntr*kx, mx, nx)."""
+    KE Laplacian. Pure pointwise/shift spectral algebra. Tracer tendencies
+    come back FLAT: (2, ntr*kx, mx, nx)."""
     sp = consts.sp
     vordt, divdt = S.vel2vort_p(sp, specs[0], specs[1])
     _, tdt_flux = S.vel2vort_p(sp, specs[2], specs[3])
@@ -298,31 +288,21 @@ def combine_specs(consts, specs, ntr: int, kx: int):
     return vordt, divdt, tdt, trdt_flat
 
 
-def spectral_linear_tendencies(consts, div, ps, phi, divdt, tdt, psdt,
-                               mosaic_safe: bool = False):
+def spectral_linear_tendencies(consts, div, ps, phi, divdt, tdt, psdt):
     """Linear (reference-profile) spectral tendencies on explicit arrays
     (tendencies.f90:283-352). div/phi are (2, kx, mx, nx), ps (2, mx, nx).
-
-    mosaic_safe selects kernel-compatible formulations (log-shift prefix sums
-    instead of jnp.cumsum — a while loop on TPU with no Mosaic lowering — and
-    broadcast-sum instead of einsum). The summation order differs at the ulp
-    level from the sequential forms, so the default XLA path keeps the
-    reference-ordered originals (golden fixtures pin that trajectory)."""
+    Sequential (reference-ordered) sums: golden fixtures pin this
+    trajectory."""
     sp = consts.sp
     geom = consts.geom
     im: ImplicitTables = consts.implicit
-    # Host-side numpy columns: Mosaic kernels cannot close over traced 1-D
-    # constants; >=3-D numpy broadcasts are hoisted cleanly.
     dhs_np = np.asarray(geom.dhs)
     dhsr_c = np.asarray(geom.dhsr)[:, None, None]
     tref_np = np.asarray(im.tref)
     tref2_c = np.asarray(im.tref2)[:, None, None]
     tref3_c = np.asarray(im.tref3)[:, None, None]
 
-    if mosaic_safe:
-        dmeanc = jnp.sum(dhs_np[None, :, None, None] * div, axis=1)
-    else:
-        dmeanc = jnp.einsum("k,ckmn->cmn", geom.dhs.astype(div.dtype), div)
+    dmeanc = S.einsum("k,ckmn->cmn", geom.dhs.astype(div.dtype), div)
     not00 = np.ones((psdt.shape[-2], psdt.shape[-1]))
     not00[0, 0] = 0.0
     psdt = (psdt - dmeanc) * jnp.asarray(not00, dtype=dmeanc.dtype)
@@ -331,10 +311,7 @@ def spectral_linear_tendencies(consts, div, ps, phi, divdt, tdt, psdt,
     # accumulates only through k=kx-1 so the bottom boundary stays zero.
     zero2 = jnp.zeros_like(div[:, :1])
     flux = dhs_np[:-1, None, None] * (div[:, :-1] - dmeanc[:, None])
-    if mosaic_safe:
-        csum = _prefix_cumsum(flux, axis=1)
-    else:
-        csum = jnp.cumsum(flux, axis=1)
+    csum = jnp.cumsum(flux, axis=1)
     sigdtc = jnp.concatenate([zero2, -csum, zero2], axis=1)
 
     dumk = jnp.concatenate(

@@ -62,9 +62,8 @@ def step(consts, state, j1: int, j2: int, dt: float, physics_fn=None, ctx=None):
     For the default semi-implicit configuration (alph >= 0.5) the whole
     spectral side — flux combination, linear tendencies, implicit
     correction, diffusion, leapfrog — runs through
-    spectral_glue.apply_spectral_update: one Pallas program per member on
-    the TPU batched path, plain XLA (bitwise-reference-ordered) otherwise.
-    The explicit gravity-wave branch below (alph < 0.5, dead at the
+    spectral_glue.apply_spectral_update (reference-ordered XLA). The
+    explicit gravity-wave branch below (alph < 0.5, dead at the
     reference default) keeps the original op-by-op formulation.
     """
     params = consts.params

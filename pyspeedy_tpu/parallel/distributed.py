@@ -2,11 +2,11 @@
 and global ensemble construction.
 
 The reference has no distributed layer at all (its ensemble runner is an
-OpenMP loop, speedy_driver.f90:58-79). The TPU-native scale-out design keeps
-the member ("ensemble") axis over the slow interconnect (DCN, across hosts)
-— members never communicate, so DCN carries zero steady-state traffic — and
-the latitude/wavenumber ("space") axis over ICI within a slice, where the
-transform transpose collectives live.
+OpenMP loop, speedy_driver.f90:58-79). The scale-out design keeps the
+member ("ensemble") axis over the slow interconnect (the network, across
+hosts) — members never communicate, so it carries zero steady-state
+traffic — and the latitude/wavenumber ("space") axis over the fast links
+within a host, where the transform transpose collectives live.
 
 Typical multi-host entry:
 
@@ -17,7 +17,7 @@ Typical multi-host entry:
     run = make_run_steps_batched(consts, mesh=mesh)
 
 `tools/launch_multihost.py` drives this path with N local CPU processes
-(virtual devices) so the multi-process code is testable without a pod.
+(virtual devices) so the multi-process code is testable on one host.
 """
 
 from __future__ import annotations
@@ -41,8 +41,7 @@ def initialize_distributed(coordinator_address: str | None = None,
 
     Arguments default from the standard environment variables
     (JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID, also set
-    by tools/launch_multihost.py). On TPU pods with the default runtime the
-    call works with no arguments at all. Returns True if distributed mode is
+    by tools/launch_multihost.py). Returns True if distributed mode is
     active (more than one process), False for single-process runs.
     """
     global _INITIALIZED

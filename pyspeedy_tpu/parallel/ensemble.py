@@ -1,9 +1,9 @@
-"""Batched ensemble execution — the TPU-native replacement for the
-reference's OpenMP `parallel_step` (speedy_driver.f90:58-79).
+"""Batched ensemble execution — the replacement for the reference's OpenMP
+`parallel_step` (speedy_driver.f90:58-79).
 
 Members form a leading batch axis on every state array; one vmapped step
-advances all members at once (the transforms become bigger batched matmuls —
-exactly where TPU throughput comes from), and the member axis shards over the
+advances all members at once (the transforms become bigger batched matrix
+products), and the member axis shards over the
 "ensemble" mesh axis for multi-chip scale-out with zero cross-member
 communication.
 """
@@ -19,24 +19,19 @@ from .mesh import ensemble_state_sharding
 __all__ = ["broadcast_state", "make_run_steps_batched", "shard_ensemble",
            "MEMBER_CHUNK", "pick_member_chunk", "pick_scan_unroll"]
 
-# Measured throughput optimum (BENCH_NOTES round 4, re-tuned after the
-# aligned-scan/grid_phi/bf16-tendency traffic cuts): at 1024 T30 members,
-# 128-wide chunks run 34.5k msps vs 29.9k (256), 24.8k (512), 22.6k
-# (1024-wide) and 24.3k (64) — a sharp optimum where the per-chunk working
-# set best fits on-chip. Round 3's knee was 256. Shared by SpeedyEns and
-# bench.py.
+# Member-axis chunk widths, shared by SpeedyEns and bench.py. They were
+# tuned on an earlier accelerator and are not yet measured on the H100
+# (ROADMAP speed item 7 re-sweeps them): a chunk bounds the per-scan working
+# set, and at higher resolutions the per-member working set grows, so the
+# chunk shrinks.
 MEMBER_CHUNK = 128
-# At higher resolutions the optimum shrinks much faster than the grid
-# grows (measured, 128-member ensembles): T47 17.7k msps at chunk 8 vs
-# 10.2k at 64; T63 12.5k at 4 and 12.2k at 8 vs 6.4k at 64.
 MEMBER_CHUNK_HIRES = 8
 _T30_GRID_POINTS = 96 * 48
 
 
 def pick_member_chunk(n_members: int, params=None) -> int:
-    """Chunk width for an n-member ensemble: the measured optimum for the
-    resolution when it divides the ensemble evenly, else the whole
-    ensemble."""
+    """Chunk width for an n-member ensemble: the resolution's chunk when it
+    divides the ensemble evenly, else the whole ensemble."""
     target = MEMBER_CHUNK
     if params is not None and params.ix * params.il > _T30_GRID_POINTS:
         target = MEMBER_CHUNK_HIRES
@@ -46,19 +41,13 @@ def pick_member_chunk(n_members: int, params=None) -> int:
 
 
 def pick_scan_unroll(chunk: int, params=None) -> int:
-    """Scan unroll factor for a `chunk`-wide batched run (round-5 sweep,
-    tools/exp_scan_unroll.py): at or above the T30 128-member knee the step
-    saturates HBM and unrolling only loses (-1.6% at x2, -2.5% at x4, 256
-    members); BELOW the knee the per-iteration overhead shows and x2 is
-    +3.1% (64 members: 20.9k -> 21.6k msps; x4 loses again). Hi-res runs
-    (chunk 8, much larger per-iteration work) are unmeasured — keep 1."""
+    """Scan unroll factor for a `chunk`-wide batched run: 2 below the T30
+    MEMBER_CHUNK, where per-iteration overhead shows, else 1 (a step that
+    saturates device memory only loses by unrolling). Like the chunk
+    widths, a rule carried over unmeasured on the H100 (ROADMAP speed item
+    7)."""
     hires = params is not None and params.ix * params.il > _T30_GRID_POINTS
     return 2 if (chunk < MEMBER_CHUNK and not hires) else 1
-
-# NB round 3 carried the nstrad shortwave cache in bfloat16 to cut its
-# scan-carry traffic. The round-4 SW-ALIGNED scan (run_aligned below)
-# removes those fields from the carry entirely — full precision AND less
-# traffic — so the bf16 cache machinery was deleted.
 
 
 def broadcast_state(state: dict, n_members: int) -> dict:
@@ -68,9 +57,8 @@ def broadcast_state(state: dict, n_members: int) -> dict:
     footprint and never change during a run."""
     def rep(name, x):
         if name == "sppt_key":
-            # Distinct per-member streams, stored as raw key data (a typed
-            # key array in the scan carry measured ~23% throughput by
-            # itself — physics/sppt.as_typed_key).
+            # Distinct per-member streams, stored as raw key data (see
+            # physics/sppt.as_typed_key).
             from ..physics.sppt import as_typed_key
             keys = jax.random.split(as_typed_key(x), n_members)
             return jax.random.key_data(keys)
@@ -95,17 +83,16 @@ def make_run_steps_batched(consts, mesh=None, shard_space: bool = True,
     carry (any n_steps). With physics off (or phase=None) the unaligned
     group scan is used (phase then requires n_steps % 3 == 0).
 
-    donate: input-buffer donation measured NO speedup on this backend
-    (round 3) and invalidates the loop-invariant arrays SHARED between
-    member-chunk states — off by default.
+    donate: input-buffer donation invalidates the loop-invariant arrays
+    SHARED between member-chunk states — off by default.
 
     unroll: lax.scan unroll factor for the step-group loop (the body is a
     3-step triple on the aligned path)."""
     import dataclasses
 
     # Per-field transforms batch well already under vmap; the fused
-    # mega-concat variant regressed the batched path on TPU in round-1
-    # profiling (see Consts), so it stays opt-in here.
+    # mega-concat variant materializes large intermediates (see Consts), so
+    # it stays opt-in here.
     consts = dataclasses.replace(consts, fuse_transforms=fuse_transforms)
 
     # Carry only fields whose previous-step value is actually consumed;

@@ -1,7 +1,7 @@
 """Device-mesh and sharding layout for scale-out.
 
 The reference's entire distributed layer is an OpenMP loop over ensemble
-members (speedy_driver.f90:58-79). The TPU-native replacement is an
+members (speedy_driver.f90:58-79). The replacement here is an
 ("ensemble", "space") jax.sharding.Mesh:
 
 * the member axis of the batched state is sharded over "ensemble"
@@ -13,7 +13,8 @@ members (speedy_driver.f90:58-79). The TPU-native replacement is an
 * spectral (m, n) fields are sharded over m on "space".
 
 With these input/output shardings declared on the jitted step, XLA's SPMD
-partitioner inserts the transpose collectives over ICI automatically.
+partitioner inserts the transpose collectives automatically. The cards
+of a host are joined all to all, so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -28,14 +28,16 @@ import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
 from jax import shard_map
 
+from ..ops import spectral as S
+
 __all__ = ["grid2spec_sharded", "spec2grid_sharded"]
 
 
 def _fourier_direct_local(sp, grid_local):
     ix = grid_local.shape[-1]
     if sp.use_matmul_fft:
-        re = jnp.einsum("...i,im->...m", grid_local, sp.dft_fwd_re)
-        im = jnp.einsum("...i,im->...m", grid_local, sp.dft_fwd_im)
+        re = S.einsum("...i,im->...m", grid_local, sp.dft_fwd_re)
+        im = S.einsum("...i,im->...m", grid_local, sp.dft_fwd_im)
         return re, im
     F = jnp.fft.rfft(grid_local, axis=-1)[..., : sp.mx] / ix
     return jnp.real(F), jnp.imag(F)
@@ -44,8 +46,8 @@ def _fourier_direct_local(sp, grid_local):
 def _fourier_inverse_local(sp, f_re, f_im):
     ix = 2 * sp.il
     if sp.use_matmul_fft:
-        return (jnp.einsum("...m,mi->...i", f_re, sp.dft_inv_re)
-                + jnp.einsum("...m,mi->...i", f_im, sp.dft_inv_im))
+        return (S.einsum("...m,mi->...i", f_re, sp.dft_inv_re)
+                + S.einsum("...m,mi->...i", f_im, sp.dft_inv_im))
     F = (f_re + 1j * f_im).at[..., 0].set(f_re[..., 0])
     pad = [(0, 0)] * (F.ndim - 1) + [(0, ix // 2 + 1 - sp.mx)]
     return jnp.fft.irfft(jnp.pad(F, pad), n=ix, axis=-1) * ix
@@ -69,8 +71,8 @@ def grid2spec_sharded(sp, mesh, grid):
     def _direct(g_loc, cp_loc):
         # g_loc: (B, il/P, ix); cp_loc: (il/P, mx, nx)
         f_re, f_im = _fourier_direct_local(sp, g_loc)
-        part_re = jnp.einsum("jmn,bjm->bmn", cp_loc, f_re)
-        part_im = jnp.einsum("jmn,bjm->bmn", cp_loc, f_im)
+        part_re = S.einsum("jmn,bjm->bmn", cp_loc, f_re)
+        part_im = S.einsum("jmn,bjm->bmn", cp_loc, f_im)
         # The transpose/reduction across latitude bands: one psum on ICI.
         part_re = jax.lax.psum(part_re, "space")
         part_im = jax.lax.psum(part_im, "space")
@@ -94,8 +96,8 @@ def spec2grid_sharded(sp, mesh, spec, kcos: int = 1):
         out_specs=P(None, "space", None),
     )
     def _inverse(sp_in, cp_loc, cosgr_loc):
-        f_re = jnp.einsum("jmn,bmn->bjm", cp_loc, jnp.real(sp_in))
-        f_im = jnp.einsum("jmn,bmn->bjm", cp_loc, jnp.imag(sp_in))
+        f_re = S.einsum("jmn,bmn->bjm", cp_loc, jnp.real(sp_in))
+        f_im = S.einsum("jmn,bmn->bjm", cp_loc, jnp.imag(sp_in))
         f_im = f_im.at[..., 0].set(0.0)
         g = _fourier_inverse_local(sp, f_re, f_im)
         if kcos != 1:

@@ -1,6 +1,6 @@
 """Model configuration parameters.
 
-TPU-native equivalent of the reference's compile-time configuration
+The equivalent of the reference's compile-time configuration
 (``speedy.f90/params.f90:18-44``).  Unlike the reference, the resolution is a
 runtime (but trace-static) dataclass so several resolutions can coexist in one
 process; the spectral/grid sizes feed static shapes into every jitted function.
@@ -46,11 +46,11 @@ class ModelParams:
     thdd: float = 2.4        # del^8, divergence
     thds: float = 12.0       # del^2, stratospheric
 
-    # Numerics: "f64" for reference parity, "f32" for the TPU fast path.
+    # Numerics: "f64" for reference parity, "f32" for the fast path.
     precision: str = "f64"
 
     # Zonal transform implementation: "fft" (jnp.fft), "matmul" (dense DFT,
-    # MXU-friendly and shardable), or "auto" (matmul on accelerators).
+    # shardable), or "auto" (see models/model.py build_consts).
     fft_mode: str = "auto"
 
     # The reference evaluates Legendre polynomials at first-guess (and

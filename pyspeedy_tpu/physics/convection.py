@@ -33,10 +33,8 @@ SMF = 0.8      # secondary/primary cloud-base mass-flux ratio
 def _rev_cumsum(x):
     """Suffix sums along axis 0: out[k] = sum_{j >= k} x[j].
 
-    Log-depth shift-adds instead of jnp.cumsum: on the TPU backend cumsum
-    lowers to a while loop (unfusable); three shifted adds fuse into the
-    surrounding elementwise work, and the same code lowers inside Pallas
-    kernels (Mosaic has no cumsum/flip)."""
+    Log-depth shift-adds instead of jnp.cumsum: three shifted adds fuse
+    into the surrounding elementwise work."""
     n = x.shape[0]
     shift = 1
     while shift < n:
@@ -75,7 +73,7 @@ def diagnose_convection(geom, psa, se, qa, qsat):
         ktop2 = jnp.full_like(psa, big)
         msthr = jnp.zeros_like(psa)
     else:
-        # contiguous slices, not index gathers (fuses; Pallas-compatible)
+        # contiguous slices, not index gathers (fuses)
         lo, hi = 2, kx - 3
         w1 = np.asarray(wvi)[lo:hi, 1][:, None, None]
         mss2 = mss[lo:hi] + w1 * (mss[lo + 1:hi + 1] - mss[lo:hi])
@@ -148,7 +146,7 @@ def get_convection_tendencies(geom, psa, se, qa, qsat):
     # the sequential updates become bottom-up cumulative sums ("after" = the
     # value just after this level's update; "before" = the level below's
     # "after", with the boundary layer at the bottom).
-    # host-side constant (numpy, not a traced iota — Pallas/Mosaic friendly)
+    # host-side constant (numpy, folded by XLA)
     karr = np.arange(1, kx + 1, dtype=np.int32)[:, None, None]  # 1-based
     interm = (karr >= 3) & (karr <= kx - 1)
     m = active[None] & (karr > itop[None]) & interm

@@ -6,9 +6,7 @@ cached in the state) -> longwave down -> surface fluxes -> longwave up ->
 vertical diffusion -> surface-flux tendencies -> SPPT.
 
 Structure: `grid_physics` is the whole grid-space physics chain as a pure
-function of explicit arrays (no state dict) — column-local by construction,
-so it can run either as plain XLA or as a single Pallas kernel over latitude
-tiles (physics/pallas_physics.py) where every intermediate stays in VMEM.
+function of explicit arrays (no state dict), column-local by construction.
 `get_physical_tendencies` is the state-dict glue around it.
 """
 
@@ -51,8 +49,7 @@ DIAG_FIELDS = ("cbmf", "precnv", "precls", "slrd", "slr", "olr",
 
 
 def grid_physics(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
-                 ablco2, coa2d=None, phisg=None, m0corr=None,
-                 sppt_pattern=None):
+                 ablco2, sppt_pattern=None):
     """The full grid-space physics chain (physics.f90:107-232) on explicit
     arrays. Returns (utend, vtend, ttend, qtend, diag, new_cache) where the
     tendencies are the PHYSICS-ONLY contributions (added to the dynamics
@@ -61,29 +58,11 @@ def grid_physics(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
 
     sw_flag: Python bool (statically specialized step) or traced bool
     (lax.cond). All operations are column-local: elementwise over (il, ix)
-    with reductions only along the level/band axes — the precondition for
-    the Pallas tiled execution.
-
-    phig=None (consts.grid_phi fast path) reconstructs the geopotential
-    in-body by the column-local hydrostatic recursion from tg, phisg (grid
-    surface geopotential) and m0corr (the zonally-uniform m=0 lapse-rate
-    correction, (kx, il, 1), synthesized by the caller from spectral t) —
-    exact commutation with geopotential.f90:49-77, and inside the Pallas
-    kernel it removes both the phi transform stack and the phig HBM
-    round-trip.
+    with reductions only along the level/band axes.
     """
     geom = consts.geom
     params = consts.params
     kx = params.kx
-    if phig is None:
-        xg1 = np.asarray(consts.gp.xgeop1)
-        xg2 = np.asarray(consts.gp.xgeop2)
-        levels = [None] * kx
-        levels[kx - 1] = phisg + float(xg1[kx - 1]) * tg[kx - 1]
-        for k in range(kx - 2, -1, -1):
-            levels[k] = (levels[k + 1] + float(xg2[k + 1]) * tg[k + 1]
-                         + float(xg1[k]) * tg[k])
-        phig = jnp.stack(levels, axis=0) + m0corr
     (fmask_land, phis0, forog, sst_am, alb_land, alb_sea, alb_surface,
      snowc, land_temp, soil_avail_water, zenit_correction, flux_solar_in,
      flux_ozone_upper, flux_ozone_lower, stratospheric_correction,
@@ -170,15 +149,14 @@ def grid_physics(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
         geom, psg, ug, vg, tg, qg, rh, phig,
         phis0, fmask_land, forog, sst_am,
         ssrd, slrd, alb_land, alb_sea, snowc,
-        land_temp, soil_avail_water, lfluxland=True, coa2d=coa2d)
+        land_temp, soil_avail_water, lfluxland=True)
     if consts.sea_coupling_flag > 0:
         # second, sea-only call with the ocean-model SST (physics.f90:186-195)
         fl = sflx.get_surface_fluxes(
             geom, psg, ug, vg, tg, qg, rh, phig,
             phis0, fmask_land, forog, ssti_om,
             ssrd, slrd, alb_land, alb_sea, snowc,
-            land_temp, soil_avail_water, lfluxland=False, prev=fl["_carry"],
-            coa2d=coa2d)
+            land_temp, soil_avail_water, lfluxland=False, prev=fl["_carry"])
     hfluxn3 = jnp.concatenate(
         [fl["hfluxn"], jnp.zeros_like(fl["hfluxn"][:1])])
 
@@ -213,11 +191,9 @@ def grid_physics(consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
     if sppt_pattern is not None:
         # SPPT multiplies the PHYSICS-ONLY tendency by 1 + pattern
         # (physics.f90:234-248: f*(tend - tend_dyn) + tend_dyn, and the
-        # outputs here ARE tend - tend_dyn). Applied in-body — i.e. inside
-        # the Pallas megakernel on the fast path — so it fuses with the
-        # chain and precedes the bf16 cast (an XLA-side f32 multiply after
-        # the kernel would re-promote the direct-transform operands).
-        # mu = 1: no vertical tapering (sppt.f90:20).
+        # outputs here ARE tend - tend_dyn). Applied in-body so it fuses
+        # with the chain and precedes the bf16 cast. mu = 1: no vertical
+        # tapering (sppt.f90:20).
         f = 1.0 + sppt_pattern
         utend = f * utend
         vtend = f * vtend
@@ -245,13 +221,9 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend, trtend):
 
     ucos, vcos = S.vort2vel_p(sp, state["vor"][0], state["div"][0])
     sw_flag = ctx["compute_shortwave"]
-    use_pallas = consts.pallas_physics and isinstance(sw_flag, bool)
     if consts.grid_phi:
         # phig by grid-space hydrostatic integration of tg (exact
-        # commutation; saves the kx-level phi synthesis stack). On the
-        # Pallas path the recursion runs INSIDE the kernel, which also
-        # removes the phig HBM round-trip; only the tiny zonally-uniform
-        # m=0 lapse-rate correction is synthesized here ((nx -> il) matvec).
+        # commutation; saves the kx-level phi synthesis stack).
         from ..models.geopotential import get_geopotential_grid
 
         ug, vg, tg, qg, pslg1 = _multi_spec2grid(
@@ -259,10 +231,8 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend, trtend):
             [ucos, vcos, state["t"][0], state["tr"][0][:, 0],
              state["ps"][0][:, None]],
             consts.fuse_transforms)
-        phig = None
-        if not use_pallas:
-            phig = get_geopotential_grid(consts.gp, sp, tg, state["t"][0],
-                                         state["phisg"])
+        phig = get_geopotential_grid(consts.gp, sp, tg, state["t"][0],
+                                     state["phisg"])
     else:
         ug, vg, tg, qg, phig, pslg1 = _multi_spec2grid(
             sp,
@@ -276,8 +246,7 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend, trtend):
 
     bc = tuple(state[name] for name in BC_FIELDS)
     # Statically-SW steps never read the cache: pass none (the SW-aligned
-    # batched scan does not carry the CACHE_FIELDS at all, and on the other
-    # paths this prunes the dead Pallas kernel operands).
+    # batched scan does not carry the CACHE_FIELDS at all).
     if sw_flag is True:
         cache = ()
     else:
@@ -285,7 +254,7 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend, trtend):
 
     # SPPT pattern for this step (physics.f90:234-248): generated up front —
     # it depends only on the AR(1) state — and applied to the physics-only
-    # tendencies INSIDE grid_physics (fused into the Pallas kernel). Scan
+    # tendencies inside grid_physics. Scan
     # bodies that group several steps precompute the group's patterns in one
     # batched gen_sppt_n call (launch-bound at small ensembles) and inject
     # them via ctx["sppt_pattern"]; the driver then skips generation.
@@ -295,28 +264,9 @@ def get_physical_tendencies(consts, state, ctx, utend, vtend, ttend, trtend):
         if sppt_pattern is None:
             sppt_pattern, state = gen_sppt(consts, state, ctx["stepno"])
 
-    if use_pallas:
-        from .pallas_physics import grid_physics_pallas
-        phisg = m0corr = None
-        if phig is None:
-            gp = consts.gp
-            t0 = state["t"][0][0][..., :, 0, :]        # (kx, nx) real m=0
-            zero = jnp.zeros_like(t0[..., :1, :])
-            tpad = jnp.concatenate([zero, t0, zero], axis=-2)
-            dtk = tpad[..., 2:, :] - tpad[..., :-2, :]
-            leg0 = sp.cpol_inv_full[:, 0, :]           # (il, nx)
-            m0corr = jnp.einsum("...kn,jn->...kj",
-                                gp.corf[:, None] * dtk, leg0)[..., None]
-            m0corr = m0corr.astype(tg.dtype)
-            phisg = state["phisg"]
-        ut, vt, tt, qt, diag, new_cache = grid_physics_pallas(
-            consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
-            state["air_absortivity_co2"], phisg=phisg, m0corr=m0corr,
-            sppt_pattern=sppt_pattern)
-    else:
-        ut, vt, tt, qt, diag, new_cache = grid_physics(
-            consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
-            state["air_absortivity_co2"], sppt_pattern=sppt_pattern)
+    ut, vt, tt, qt, diag, new_cache = grid_physics(
+        consts, sw_flag, ug, vg, tg, qg, phig, pslg, bc, cache,
+        state["air_absortivity_co2"], sppt_pattern=sppt_pattern)
 
     state = dict(state)
     state.update(zip(DIAG_FIELDS, diag))

@@ -1,7 +1,7 @@
 """Four-band longwave radiation (reference:
 speedy.f90/longwave_radiation.f90).
 
-TPU-first structure: the four spectral bands form a leading array axis
+Structure: the four spectral bands form a leading array axis
 (instead of the reference's unrolled band loops), so each level of the
 sequential up/down sweeps is a handful of fused elementwise ops on
 (4, il, ix) arrays. The integer-temperature band-fraction lookup
@@ -44,10 +44,10 @@ def _fband_at(fband, ta):
     The (301,4) table is a memoization of closed-form quadratics
     (longwave_radiation.f90:208-232) with constant extrapolation outside
     T=200..320K — equivalent to evaluating the quadratics at
-    clip(nint(T), 200, 320). A table gather at grid size is a ~20 ms
-    kCustom op per call on TPU (it dominated the ensemble step profile);
-    the direct evaluation is a handful of elementwise FLOPs that XLA fuses
-    into the neighbouring emission arithmetic."""
+    clip(nint(T), 200, 320). The direct evaluation is a handful of
+    elementwise FLOPs that XLA fuses into the neighbouring emission
+    arithmetic, where a table gather at grid size would be a separate
+    kernel."""
     eps1 = 1.0 - pc.EPSLW
     t = jnp.clip(jnp.floor(ta + 0.5), 200.0, 320.0)
     b1 = (0.148 - 3.0e-6 * (t - 247.0) ** 2) * eps1

@@ -6,14 +6,13 @@ the model state (the reference loses it to a local variable, sppt.f90:48-51),
 and the RNG is a keyed, reproducible jax.random stream per member instead of
 a wall-clock-seeded global generator (sppt.f90:132-145).
 
-Performance (round 5): at small ensembles the step is launch-bound, so the
+Performance: at small ensembles the step is launch-bound, so the
 per-step pattern generation is kept to a handful of fused HLOs — the
 wavenumber amplitude sigma and the AR(1) coefficients are HOST numpy
 constants (built once in build_sppt_tables, folded by XLA), and both
 clipped-normal planes come from ONE jax.random.normal call. The
 multiplicative application itself lives INSIDE physics/driver.grid_physics
-(before the bf16 tendency cast), so on the Pallas path it fuses into the
-megakernel and the bf16-operand direct transforms are preserved.
+(before the bf16 tendency cast), so it fuses with the physics chain.
 """
 
 from __future__ import annotations
@@ -34,11 +33,9 @@ def as_typed_key(k):
     """Typed PRNG key from either a typed key or raw uint32 key data.
 
     The state stores sppt_key as RAW KEY DATA: a typed (extended-dtype) key
-    array riding the vmapped scan carry measured a ~23% throughput hit on
-    the 16-member TPU ensemble ALL BY ITSELF, even when never rewritten
-    (round-5 bisect, BENCH_NOTES) — the extended dtype defeats the
-    while-loop carry optimizations. Raw uint32 data is a plain carry;
-    wrapping back to a typed key inside the step is free."""
+    array riding the vmapped scan carry defeats the while-loop carry
+    optimizations even when never rewritten. Raw uint32 data is a plain
+    carry; wrapping back to a typed key inside the step is free."""
     import jax.dtypes
 
     k = jnp.asarray(k)
@@ -108,9 +105,9 @@ def gen_sppt_n(consts, state, n: int, stepno):
     """Advance the AR(1) spectral pattern n steps and return the n grid-space
     multiplicative fields, clipped to +-1 (sppt.f90:40-111).
 
-    Performance contract (round-5 bisect, BENCH_NOTES): at small ensembles
-    the batched step is launch-bound and extra per-iteration scan-carry
-    fields are the dominant SPPT cost — NOT the RNG or the transform. So
+    Performance contract: at small ensembles the batched step is
+    launch-bound and extra per-iteration scan-carry fields are the dominant
+    SPPT cost, not the RNG or the transform. So
     (a) the noise is COUNTER-BASED — fold_in(member_key, stepno) — which
     leaves sppt_key loop-invariant (never rewritten, and stored as RAW
     uint32 data so no extended-dtype array rides the carry — see

@@ -52,8 +52,7 @@ def _stability_factor(tsurf, t2):
 
 def get_surface_fluxes(geom, psa, ua, va, ta, qa, rh, phi, phi0, fmask, forog,
                        tsea, ssrd, slrd, alb_land, alb_sea, snowc, land_temp,
-                       soil_avail_water, lfluxland=True, prev=None,
-                       coa2d=None):
+                       soil_avail_water, lfluxland=True, prev=None):
     """Compute surface fluxes (surface_fluxes.f90:40-320).
 
     Returns a dict with ustr/vstr/shf/evap/slru (each (3, il, ix)), hfluxn
@@ -66,10 +65,8 @@ def get_surface_fluxes(geom, psa, ua, va, ta, qa, rh, phi, phi0, fmask, forog,
     wvi = geom.wvi
     esbc = pc.EMISFC * pc.SBC
     rcp = 1.0 / pc.CP
-    # cos(lat) for the daily-cycle skin-temperature term; passed explicitly
-    # (coa2d) when running inside a latitude-tiled Pallas kernel, where the
-    # full-latitude geometry profile cannot be baked in.
-    coa = geom.coa[:, None] if coa2d is None else coa2d
+    # cos(lat) for the daily-cycle skin-temperature term
+    coa = geom.coa[:, None]
 
     if lfluxland:
         # 1. near-surface extrapolation (surface_fluxes.f90:117-160)

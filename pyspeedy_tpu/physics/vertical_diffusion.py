@@ -89,7 +89,7 @@ def get_vertical_diffusion_tend(geom, se, rh, qa, qsat, phi, icnv):
     tt = tt + jnp.concatenate(
         [fse * col(rsig[:kx - 1]), jnp.zeros_like(fse[:1])])
     g = fse * col(rsig1)                                   # rsig1[k0], k0<=kx-2
-    # prefix sums via log-depth shift-adds (cumsum is a while loop on TPU)
+    # prefix sums via log-depth shift-adds (fuse with the elementwise work)
     csum = g
     shift = 1
     while shift < csum.shape[0]:

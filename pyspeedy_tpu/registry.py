@@ -1,7 +1,7 @@
 """Model-state variable registry.
 
 The single source of truth for the public state schema: variable names,
-Fortran-order API shapes, units and NetCDF metadata — the TPU-native
+Fortran-order API shapes, units and NetCDF metadata — the
 equivalent of the reference's registry/model_state_def.py (which generates
 Fortran accessors; here the same facts drive a pytree state dict and the
 xarray-style export metadata).
@@ -186,7 +186,7 @@ def resolve_dims(params, dims, n_months=None):
 
 
 # ---------------------------------------------------------------------------
-# Internal (TPU-friendly) array layouts
+# Internal array layouts
 # ---------------------------------------------------------------------------
 # API arrays use the reference's Fortran-order shapes (e.g. vor is
 # (mx, nx, kx, t_levs)). Internally, batch-like axes lead and the spectral
@@ -200,8 +200,8 @@ def internal_perm(spec: VarSpec):
     Variables with a t_levs axis always put it FIRST internally: at runtime
     the two leapfrog time levels are held as a Python TUPLE of per-level
     arrays (a pytree, so time-level selection is free at trace time instead
-    of a per-step strided slice + re-stack of the scan carry — those slices
-    showed up as async DMA in the TPU ensemble profile). The stacked array
+    of a per-step strided slice + re-stack of the scan carry). The stacked
+    array
     view (= np.stack(tuple, 0)) is only materialized at the API boundary.
     """
     dims = spec.dims

@@ -6,7 +6,7 @@ access with registry names and Fortran-order shapes, set_bc contract,
 run(callbacks), grid/spectral conversions, CF-metadata export, and error-code
 to exception mapping.
 
-TPU-native internals: the state is a pytree of jnp arrays, a day of steps is
+Internals: the state is a pytree of jnp arrays, a day of steps is
 one jitted lax.scan, and ensembles batch the member axis with vmap instead of
 the reference's OpenMP threads.
 """
@@ -469,7 +469,7 @@ def _decode_cf_time(values, units):
 class SpeedyEns:
     """Ensemble of Speedy instances (reference: pyspeedy/speedy.py:486-597).
 
-    The TPU-native execution path batches all members in one vmapped step
+    The batched execution path runs all members in one vmapped step
     (see parallel/ensemble.py); this class keeps the reference's per-member
     object API on top of it.
     """
@@ -512,8 +512,8 @@ class SpeedyEns:
         speedy_driver.f90:58-79).
 
         batched=True (default when all members share one configuration)
-        advances every member with ONE vmapped jitted scan — the TPU-native
-        parallel_step. batched=False steps members sequentially."""
+        advances every member with ONE vmapped jitted scan (the batched
+        parallel_step). batched=False steps members sequentially."""
         if callbacks is None:
             callbacks = []
 

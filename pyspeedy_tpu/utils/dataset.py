@@ -202,7 +202,14 @@ def _open_netcdf3(path):
 
 
 def _open_netcdf4(path):
-    import h5py
+    # Optional dependency: only users' own NetCDF-4 files need it (every
+    # bundled file is NetCDF-3, which scipy reads).
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            f"{path} is a NetCDF-4/HDF5 file; reading it needs the h5py "
+            "package (or convert the file to NetCDF-3).") from e
     ds = Dataset()
     with h5py.File(path, "r") as f:
         def dims_of(obj):

@@ -9,17 +9,29 @@ wall-clock accounting of init/step/export phases.
 from __future__ import annotations
 
 import contextlib
+import subprocess
 import time
 from collections import defaultdict
 
 import jax
 
-__all__ = ["trace", "PhaseTimer"]
+__all__ = ["trace", "PhaseTimer", "gpu_name_and_power_limit"]
+
+
+def gpu_name_and_power_limit() -> str:
+    """The GPUs' names and power limits as nvidia-smi reports them (one line
+    per card). A card set below its maximum power runs slower under load,
+    so every timing is reported beside this."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"],
+                       capture_output=True, text=True, timeout=60, check=True)
+    return r.stdout.strip()
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/pyspeedy_tpu_trace"):
-    """Capture a jax.profiler trace of the enclosed block."""
+def trace(log_dir: str = "trace"):
+    """Capture a jax.profiler trace of the enclosed block into log_dir
+    (relative to the working directory by default)."""
     jax.profiler.start_trace(log_dir)
     try:
         yield log_dir

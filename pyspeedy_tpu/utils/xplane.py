@@ -1,14 +1,13 @@
 """Minimal XPlane (jax.profiler trace) reader.
 
 jax.profiler.start_trace writes ``*.xplane.pb`` protobufs (the XSpace schema
-from tsl/profiler). The tensorboard profile plugin in this image cannot load
-them (generated-proto version mismatch), so this module decodes the wire
-format directly — just enough to aggregate per-op device time, which is what
-kernel optimization needs.
+from tsl/profiler). This module decodes the wire format directly, with no
+protobuf or tensorboard dependency — just enough to aggregate per-op device
+time, which is what kernel optimization needs.
 
 Usage:
     from pyspeedy_tpu.utils.xplane import device_op_totals
-    totals = device_op_totals("/tmp/trace_dir")   # {op_name: seconds}
+    totals = device_op_totals("trace_dir")   # {op_name: seconds}
 """
 
 from __future__ import annotations
@@ -131,10 +130,12 @@ def parse_xspace(path: str) -> list[dict]:
 
 
 def device_op_totals(trace_dir: str, plane_filter: str = "/device:",
-                     line_filter: str = "XLA Ops") -> dict:
-    """Aggregate total seconds per op name over the per-op event line of all
-    device planes under a jax.profiler trace directory. Restricting to one
-    line avoids double-counting module/step/source wrapper events."""
+                     line_filter: str = "Stream") -> dict:
+    """Aggregate total seconds per op name over the kernel event lines of all
+    device planes under a jax.profiler trace directory. On the GPU those are
+    the per-stream lines ("Stream #13(Compute)", ...) of "/device:GPU:N",
+    whose events are the kernels and copies; restricting to them avoids
+    counting wrapper events of other lines."""
     paths = glob.glob(os.path.join(
         trace_dir, "**", "*.xplane.pb"), recursive=True)
     # Each start_trace/stop_trace session writes its own timestamped

@@ -237,8 +237,7 @@ def test_other_resolutions_run(preset):
     """Beyond the reference's fixed T30L8: other vertical/horizontal
     resolutions run stably from synthetic BCs (full physics). The presets
     scale dt and the diffusion times with truncation (params.py); T47/T63
-    stability over months is additionally verified on TPU (BENCH_NOTES
-    round 3)."""
+    stability over 5 days on the GPU is gated by chip_smoke.py."""
     import pyspeedy_tpu.params as P
 
     params = getattr(P, preset)
@@ -299,11 +298,8 @@ def test_bf16_tendencies_bounded_divergence():
     (~2^-9 relative on increments): short-horizon trajectories must stay
     finite, diagnostics-clean, and within increment-rounding distance of
     the f32 path — and must actually DIVERGE from it (a zero delta means
-    the flag is dead code, the round-4 advisor finding: make_run_steps
-    strips the flag, so this drives make_run_steps_batched, which keeps
-    consts flags, mirroring tools/tpu_smoke.py's bf16_tendency_gate). On
-    CPU the XLA convert ops are honored; the TPU fast path is
-    climate-validated in BENCH_NOTES round 4."""
+    the flag is dead code: make_run_steps strips the flag, so this drives
+    make_run_steps_batched, which keeps consts flags)."""
     import dataclasses
 
     import numpy as np

@@ -181,7 +181,7 @@ def test_uv_from_pure_rotation(exact):
 
 
 def test_matmul_dft_equals_fft(exact):
-    # The MXU matmul-DFT path must agree with the FFT path to roundoff.
+    # The matmul-DFT path must agree with the FFT path to roundoff.
     geom = build_geometry(EXACT)
     sp_fft = S.build_spectral(EXACT, geom, use_matmul_fft=False)
     sp_mm = S.build_spectral(EXACT, geom, use_matmul_fft=True)

@@ -1,7 +1,4 @@
-"""The spectral-glue mosaic_safe formulations (log-shift prefix sums,
-broadcast-sum contractions — kept for the experiment harness,
-tools/exp_glue.py) must track the default reference-ordered XLA glue to
-summation-order ulps; plus the batched-runner chaining contract."""
+"""The batched-runner chaining contract."""
 
 import dataclasses
 
@@ -12,37 +9,6 @@ from pyspeedy_tpu.params import T30L8
 from pyspeedy_tpu.testing import make_demo_model
 from pyspeedy_tpu.parallel.ensemble import (broadcast_state,
                                             make_run_steps_batched)
-
-
-def test_mosaic_safe_glue_matches_reference_order():
-    from pyspeedy_tpu.models.spectral_glue import spectral_update
-
-    params = dataclasses.replace(T30L8, fft_mode="matmul")
-    consts, state, cal = make_demo_model(params)
-    ntr, kx = params.ntr, params.kx
-    rng = np.random.default_rng(3)
-
-    def mk(*shape):
-        return 1e-5 * rng.standard_normal(shape)
-
-    specs = [mk(2, kx, params.mx, params.nx) for _ in range(10)]
-    flat = lambda a: a.reshape((2, ntr * kx) + a.shape[-2:])
-    arrays = (mk(2, params.mx, params.nx),
-              state["vor"][0], state["vor"][1],
-              state["div"][0], state["div"][1],
-              state["t"][0], state["t"][1],
-              state["ps"][0], state["ps"][1],
-              flat(state["tr"][0]), flat(state["tr"][1]),
-              state["phi"] if "phi" in state else mk(2, kx, params.mx,
-                                                     params.nx),
-              state["tcorh"], state["qcorh"])
-    dt = 2.0 * params.delt
-    ref = spectral_update(consts, 2, dt, params.rob, False, specs, *arrays)
-    saf = spectral_update(consts, 2, dt, params.rob, True, specs, *arrays)
-    for i, (a, b) in enumerate(zip(ref, saf)):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = np.abs(a).max() or 1.0
-        assert np.abs(a - b).max() / scale < 1e-12, i
 
 
 def test_batched_runner_output_chains_back():

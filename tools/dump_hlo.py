@@ -14,9 +14,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-os.makedirs("/tmp/pyspeedy_tpu_xla_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/pyspeedy_tpu_xla_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pyspeedy_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from pyspeedy_tpu.models import model as M
 from pyspeedy_tpu.params import T30L8
@@ -27,7 +27,7 @@ from pyspeedy_tpu.parallel.ensemble import broadcast_state, make_run_steps_batch
 def main():
     n_members = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     n_steps = int(sys.argv[2]) if len(sys.argv) > 2 else 36
-    out_path = sys.argv[3] if len(sys.argv) > 3 else "/tmp/step_hlo.txt"
+    out_path = sys.argv[3] if len(sys.argv) > 3 else "step_hlo.txt"
     backend = jax.default_backend()
     precision = "f64" if backend == "cpu" else "f32"
     params = dataclasses.replace(T30L8, precision=precision,

@@ -1,12 +1,10 @@
-"""Capture a TPU profile of the batched-ensemble step and print top HLOs.
+"""Profile the batched-ensemble step on the accelerator and print top HLOs.
 
-Usage: python tools/profile_ensemble.py [n_members] [n_days]
+Usage: python tools/profile_ensemble.py [n_members] [n_days] [trace_dir]
 
-Targets the round-1 finding: ensemble throughput plateaus ~5k member-steps/s
-from 64 members up, far above the HBM floor for the carried state. This
-script traces a timed multi-day run and aggregates per-op device time via
-pyspeedy_tpu.utils.xplane (the tensorboard profile plugin cannot read these
-traces in this image).
+Times a multi-day batched run, then traces one more run and aggregates
+per-op device time via pyspeedy_tpu.utils.xplane. The trace is written to
+trace_dir (default: output/trace_m<n_members>).
 """
 
 import dataclasses
@@ -19,9 +17,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
 
-os.makedirs("/tmp/pyspeedy_tpu_xla_cache", exist_ok=True)
-jax.config.update("jax_compilation_cache_dir", "/tmp/pyspeedy_tpu_xla_cache")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from pyspeedy_tpu.utils.compile_cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from pyspeedy_tpu.models import model as M
 from pyspeedy_tpu.params import T30L8
@@ -60,7 +58,8 @@ def main():
     print(json.dumps({"members": n_members, "days": n_days, "wall_s": wall,
                       "member_steps_per_s": msps}), flush=True)
 
-    trace_dir = f"/tmp/pyspeedy_trace_m{n_members}"
+    trace_dir = (sys.argv[3] if len(sys.argv) > 3
+                 else os.path.join("output", f"trace_m{n_members}"))
     jax.profiler.start_trace(trace_dir)
     out = run(bstate, ctx)
     jax.block_until_ready(out)

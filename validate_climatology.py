@@ -13,7 +13,7 @@ compile-time locked to T30, params.f90:18-29) run from the synthetic BCs
 is on the 96x48 grid only. Their damping/dt retunes (params.py) were
 calibrated by short runs; this is the multi-month stability + climate gate.
 
-On CPU (f64) a T30 year takes ~10 minutes; on TPU (f32) under a minute.
+On CPU (f64) a T30 year takes ~10 minutes; on the GPU it is not measured.
 """
 
 import argparse
@@ -100,6 +100,9 @@ def main():
 
     import jax
 
+    from pyspeedy_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if jax.default_backend() == "cpu" and not args.f32:
         jax.config.update("jax_enable_x64", True)
 
